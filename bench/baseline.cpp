@@ -7,12 +7,12 @@
 // must match) and set storage in a flat open-addressing hash table, which is
 // *faster* than the reference's rank/tiered/trie structure for pure
 // throughput — i.e. this is a conservative (strong) baseline to compare the
-// TPU path against.
+// device path against.
 //
 // Input: a binary file of 2-bit base codes (uint8 per base).
 // Output: one JSON line with single-core insert/query k-mers per second.
 //
-// Build: g++ -O3 -march=native -std=c++17 baseline.cpp -o baseline
+// Built on first use by bench.py (build_baseline) into bench/build/.
 
 #include <chrono>
 #include <cstdint>
@@ -182,7 +182,7 @@ static int run_dynamic(const std::vector<uint8_t>& codes) {
 // Canonical-mode oracle + baseline (bench.py --canonical).  Key = the
 // smaller of (k-mer, reverse-complement): any deterministic class
 // representative yields the same distinct/positive counts as the
-// TPU path's parity-canonical necklace words (one word per {x, rc(x)}
+// device path's parity-canonical necklace words (one word per {x, rc(x)}
 // class; cf. /root/reference/src/kmer.rs:93-106).  No necklace work at
 // all, so as a TIMING baseline it is strictly stronger (faster) than a
 // reference-class canonical implementation — the ratio is conservative.

@@ -31,7 +31,7 @@ def _add_common(p):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="cbl_tpu",
-        description="TPU-native CBL: an exact, dynamic representation of k-mer sets",
+        description="CBL on an accelerator: an exact, dynamic representation of k-mer sets",
     )
     ap.add_argument(
         "--trace", default=None, metavar="DIR",

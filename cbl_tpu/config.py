@@ -3,11 +3,11 @@
 The reference derives compile-time constants from K and PREFIX_BITS in
 `build.rs:9-57` and `src/cbl.rs:19-32,65-67`.  We mirror the same derivations
 here as a frozen dataclass; every JAX computation is specialised (jitted) per
-config, which is the TPU analog of the reference's "recompile per K"
+config, which is the JAX analog of the reference's "recompile per K"
 philosophy (`/root/reference/build.rs:1-8`).
 
 Words are represented on device as little groups of big-endian uint32 limbs
-(limb 0 = most significant).  uint32 is the native TPU integer width; wide
+(limb 0 = most significant).  uint32 is the native device integer width; wide
 words (up to 125 bits for K=59) become 4-limb vectors.
 """
 
@@ -67,7 +67,7 @@ class CBLConfig:
         """`/root/reference/src/cbl.rs:29-32`."""
         return max(self.n_bits - self.prefix_bits, 0)
 
-    # --- limb layout (TPU-native; no reference counterpart) ---
+    # --- limb layout (device-native; no reference counterpart) ---
 
     @property
     def word_limbs(self) -> int:

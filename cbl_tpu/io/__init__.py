@@ -3,7 +3,7 @@
 The reference delegates parsing to the needletail crate
 (`/root/reference/examples/cbl.rs:8,112-115`, gzip supported) and feeds
 records one at a time to `insert_seq`.  Here the parser's job is bigger: it
-must keep a TPU fed, so it emits one concatenated code stream + record
+must keep the device fed, so it emits one concatenated code stream + record
 offsets (the exact format of `CBL.insert_codes_stream`).  A C++ decoder
 (`native/fastx.cpp`, built on first use) does the byte crunching; a pure
 numpy fallback keeps everything working without a toolchain.
@@ -22,24 +22,36 @@ from ..kmer import NUC_LOOKUP
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "native")
 _NATIVE_SRC = os.path.join(_NATIVE_DIR, "fastx.cpp")
-_NATIVE_LIB = os.path.join(_NATIVE_DIR, "_fastx.so")
+_BUILD_DIR = os.path.join(_NATIVE_DIR, "build")
 
 _native = None
 _native_failed = False
 
 
-def _build_native() -> bool:
-    cmd = [
-        "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-        _NATIVE_SRC, "-o", _NATIVE_LIB, "-lz",
-    ]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        return True
-    except Exception as e:  # pragma: no cover - toolchain missing
-        print(f"cbl_tpu: native fastx build failed ({e}); using python parser",
-              file=sys.stderr)
-        return False
+def native_lib_path(src: str = _NATIVE_SRC,
+                    build_dir: str = _BUILD_DIR) -> str:
+    """Library path keyed by the source's content hash: an edited source
+    builds a new library, and a stale one is never loaded."""
+    import hashlib
+
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(build_dir, f"_fastx-{digest}.so")
+
+
+def build_native(src: str = _NATIVE_SRC, build_dir: str = _BUILD_DIR) -> str:
+    """Compile `fastx.cpp` into `build_dir` unless this source was built
+    already; returns the library path.  Raises on a failed build."""
+    lib = native_lib_path(src, build_dir)
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", src, "-o", tmp,
+           "-lz"]
+    subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+    os.replace(tmp, lib)  # atomic: no reader sees a partial file
+    return lib
 
 
 def _load_native():
@@ -48,12 +60,13 @@ def _load_native():
         return _native
     import ctypes
 
-    if not os.path.exists(_NATIVE_LIB) or (
-        os.path.getmtime(_NATIVE_LIB) < os.path.getmtime(_NATIVE_SRC)
-    ):
-        if not _build_native():
-            _native_failed = True
-            return None
+    try:
+        lib_path = build_native()
+    except Exception as e:  # toolchain or zlib missing
+        print(f"cbl_tpu: native fastx build failed ({e}); using python parser",
+              file=sys.stderr)
+        _native_failed = True
+        return None
 
     class _Result(ctypes.Structure):
         _fields_ = [
@@ -65,7 +78,7 @@ def _load_native():
         ]
 
     try:
-        lib = ctypes.CDLL(_NATIVE_LIB)
+        lib = ctypes.CDLL(lib_path)
         lib.fastx_parse.restype = ctypes.POINTER(_Result)
         lib.fastx_parse.argtypes = [ctypes.c_char_p]
         lib.fastx_free.argtypes = [ctypes.POINTER(_Result)]
@@ -78,6 +91,11 @@ def _load_native():
         _native_failed = True
         _native = None
     return _native
+
+
+def parser_kind() -> str:
+    """Which FASTA/Q parser `parse_fastx` runs here: "native" or "python"."""
+    return "python" if _load_native() is None else "native"
 
 
 def pack_stream_native(codes) -> "np.ndarray | None":

@@ -3,7 +3,7 @@
 // Counterpart of the reference's native layer: where imartayan/CBL vendors
 // C++ for its hot containers (`/root/reference/cxx/`) and delegates FASTA/Q
 // parsing to the needletail crate (`/root/reference/examples/cbl.rs:8,112-115`),
-// our hot path is on-TPU, and the host-side bottleneck is feeding it.  This
+// our hot path is on the device, and the host-side bottleneck is feeding it.  This
 // parser turns a (possibly gzipped) FASTA/FASTQ file straight into the 2-bit
 // code stream + record offsets the device pipeline consumes, skipping invalid
 // characters exactly like the reference's filter_map

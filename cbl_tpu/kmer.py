@@ -11,7 +11,7 @@ Reference semantics (`/root/reference/src/kmer.rs`):
 - a k-mer is canonical iff its packed integer has even popcount
   (`src/kmer.rs:93-97`); valid because K is odd.
 
-TPU-first design: instead of the reference's per-base streaming loop
+Accelerator design: instead of the reference's per-base streaming loop
 (`src/kmer.rs:163-193`), we pack a whole base stream into uint32 words
 (16 bases/word, big-endian) and gather every k-mer's limbs with vectorized
 shifts — thousands of k-mers per XLA op.
@@ -90,8 +90,8 @@ def extract_kmers(stream, n_kmers: int, cfg: CBLConfig):
 
     K-mer starts with the same (i mod 16) phase read the stream at the same
     static bit offset within consecutive words, so the 16 phases become 16
-    static strided slices + constant shifts — pure VPU work, no gathers
-    (random gathers run ~20x slower than streaming ops on TPU).  Replaces
+    static strided slices + constant shifts — pure elementwise work, no
+    gathers.  Replaces
     the reference's sliding `append` loop (`src/kmer.rs:163-193`).
     """
     W = cfg.kmer_bits

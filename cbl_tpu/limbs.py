@@ -1,8 +1,8 @@
 """Multi-limb uint32 arithmetic for wide bit-packed words.
 
 The reference stores k-mers and packed words in single Rust integers up to
-u128 (`/root/reference/build.rs:59-68`).  TPUs have no native 64/128-bit
-integer units, so we represent a W-bit value as L = ceil(W/32) uint32 limbs in
+u128 (`/root/reference/build.rs:59-68`).  Accelerators have no native
+64/128-bit integer units, so we represent a W-bit value as L = ceil(W/32) uint32 limbs in
 **big-endian limb order** (limb 0 = most significant).  Values are
 right-aligned: the top `32*L - W` bits of limb 0 are zero.  With this layout
 lexicographic limb order equals numeric order, which is what `jax.lax.sort`

@@ -1,6 +1,6 @@
 """Multi-host (multi-process) scaffolding.
 
-A multi-host TPU pod runs one process per host; `jax.distributed.initialize`
+A multi-host cluster runs one process per host; `jax.distributed.initialize`
 joins them into one global device mesh, after which ShardedCBL works
 unchanged (its mesh spans all global devices and `all_to_all`/`psum` ride
 ICI).  The host-side seam is input partitioning: each host parses and streams
@@ -23,8 +23,8 @@ def init_distributed(coordinator_address: str | None = None,
                      process_id: int | None = None) -> None:
     """Join a multi-process JAX cluster (no-op if single-process).
 
-    On Cloud TPU pods the arguments are auto-detected; pass them explicitly
-    for manual clusters."""
+    Pass the arguments explicitly: nothing detects the cluster
+    (coordinator_address such as "localhost:<port>")."""
     import jax
 
     kwargs = {}
@@ -402,9 +402,8 @@ def launch_multihost_dryrun(n_proc: int = 2, devices_per_proc: int = 4,
         os.path.abspath(__file__))))
     procs = []
     for pid in range(n_proc):
-        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env = dict(os.environ)
         env["JAX_PLATFORMS"] = "cpu"
-        env["CBL_TPU_PLATFORM"] = "cpu"
         env["XLA_FLAGS"] = (
             f"--xla_force_host_platform_device_count={devices_per_proc}"
         )

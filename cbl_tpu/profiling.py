@@ -2,7 +2,7 @@
 
 The reference has no in-library tracing (SURVEY.md §5.1 — the author
 profiled with cargo-flamegraph; the only instrument is a ns/necklace
-microbenchmark).  The TPU equivalents here: `jax.profiler` trace capture
+microbenchmark).  The equivalents here: `jax.profiler` trace capture
 around any region, and a lightweight k-mers/s throughput meter used by the
 CLI and bench.
 """

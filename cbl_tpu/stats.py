@@ -103,7 +103,7 @@ def buckets_node_count(cbl) -> dict[int, int]:
 
 
 def shard_balance(cbl, num_shards: int) -> np.ndarray:
-    """Words owned by each prefix-space shard (new TPU-framework stat:
+    """Words owned by each prefix-space shard (new multi-device stat:
     measures skew of the multi-chip partition, SURVEY.md §2.9)."""
     prefixes = cbl.wordset.prefixes()
     shard_bits = max((num_shards - 1).bit_length(), 0)

@@ -3,9 +3,9 @@
 representation.
 
 The reference supports fully dynamic per-op updates
-(`/root/reference/src/wordset/mod.rs:97-137`); the TPU-native shape of
+(`/root/reference/src/wordset/mod.rs:97-137`); the batched shape of
 that workload is `CBL.dynamic_round`: each round is ONE device program
-(sort the round's own batch, one merge-path pass into a persistently
+(sort the round's own batch, one merge pass into a persistently
 sorted log, one hit scan), all rounds pipeline asynchronously, and the
 scalars sync once at the end.  `count()` scans the log without folding.
 """

@@ -18,7 +18,7 @@ statistics exist precisely so the partition can be re-tuned,
 
 Run on 8 virtual CPU devices:
 
-    env CBL_TPU_PLATFORM=cpu \
+    env JAX_PLATFORMS=cpu \
         XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/repartition_recovery.py
 """

@@ -7,7 +7,7 @@ devices, k-mers are routed to owner shards with one all-to-all per slab
 group, and set counts reduce with psum.  Runs on any device count —
 including 8 virtual CPU devices:
 
-    env CBL_TPU_PLATFORM=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+    env JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/sharded_build.py reads.fa
 """
 

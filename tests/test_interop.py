@@ -255,11 +255,12 @@ def test_export_import_cli_large(tmp_path):
     def run(*args):
         import os
 
-        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-        env["CBL_TPU_PLATFORM"] = "cpu"
+        env = dict(os.environ)
+        env["JAX_PLATFORMS"] = "cpu"
         r = subprocess.run(
             [sys.executable, "-m", "cbl_tpu", *args],
-            capture_output=True, env=env, cwd="/root/repo",
+            capture_output=True, env=env,
+            cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         )
         assert r.returncode == 0, r.stderr.decode()
         return r.stdout

@@ -2,6 +2,7 @@
 mirroring the reference CLI contract (`/root/reference/examples/cbl.rs`)."""
 
 import gzip
+import os
 import subprocess
 import sys
 
@@ -112,16 +113,16 @@ def test_parse_missing_file():
 
 def _run_cli(*args, extra_env=None):
     env = {
-        "PATH": "/usr/bin:/bin",
+        "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
         "JAX_PLATFORMS": "cpu",
-        "HOME": "/root",
+        "HOME": os.environ.get("HOME", ""),
     }
     if extra_env:
         env.update(extra_env)
     return subprocess.run(
         [sys.executable, "-m", "cbl_tpu", *args],
         capture_output=True,
-        cwd="/root/repo",
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         env=env,
         timeout=600,
     )

@@ -1,6 +1,7 @@
 """Necklace kernel vs brute-force oracle, mirroring
 `/root/reference/src/necklace/mod.rs:33-99`."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -82,3 +83,67 @@ def test_word_prefix():
     pref = np.asarray(necklace.word_prefix(word, cfg))
     for w, p in zip(limbs.to_py_ints(np.asarray(word)), pref):
         assert (w >> cfg.suffix_bits) == int(p)
+
+
+@pytest.mark.parametrize("k", [25, 59])
+def test_necklace_chain_jitted_batch(k):
+    """The jitted rotation chain over a slab-style batch (the shape the
+    fused pipeline compiles) against the pure-python definition, with the
+    top bits of every word set."""
+    import jax
+
+    cfg = get_config(k=k, prefix_bits=24 if k == 25 else 28)
+    rng = np.random.default_rng(3)
+    vals = [int(rng.integers(0, 1 << 30)) | (int(rng.integers(0, 1 << 30))
+            << (cfg.kmer_bits - 30)) for _ in range(1024)]
+    arr = limbs.from_py_ints(vals, cfg.kmer_limbs)
+    best, pos = jax.jit(lambda x: necklace.necklace_pos(x, cfg))(arr)
+    got_best = limbs.to_py_ints(np.asarray(best))
+    for v, b, p in zip(vals, got_best, np.asarray(pos)):
+        assert (b, int(p)) == necklace.py_necklace_pos(v, cfg.kmer_bits)
+
+
+@pytest.mark.parametrize("k", [5, 25, 59])
+def test_necklace_kernel_matches_chain(k):
+    """The GPU kernel (interpret mode) against the XLA chain and the
+    python oracle, with a partial last block."""
+    from cbl_tpu.ops.necklace_triton import necklace_pos_kernel
+
+    cfg = get_config(k=k, prefix_bits=4 if k == 5 else 24)
+    vals, arr = _random_kmers(cfg, 300, seed=k)
+    best, pos = necklace_pos_kernel(jnp.asarray(arr), cfg.kmer_bits,
+                                    block_log=6, interpret=True)
+    want_best, want_pos = necklace.necklace_chain(jnp.asarray(arr),
+                                                  cfg.kmer_bits)
+    np.testing.assert_array_equal(np.asarray(best), np.asarray(want_best))
+    np.testing.assert_array_equal(np.asarray(pos), np.asarray(want_pos))
+    got = limbs.to_py_ints(np.asarray(best))
+    for v, b, p in zip(vals[:40], got, np.asarray(pos)):
+        assert (b, int(p)) == necklace.py_necklace_pos(v, cfg.kmer_bits)
+
+
+@pytest.mark.parametrize("backend,kernel", [("gpu", True), ("cpu", False)])
+def test_necklace_route(monkeypatch, backend, kernel):
+    """`necklace_pos` takes the kernel on a GPU backend, the chain
+    elsewhere."""
+    import jax
+
+    from cbl_tpu.ops import necklace_triton
+
+    calls = []
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    monkeypatch.setattr(necklace_triton, "necklace_pos_kernel",
+                        lambda x, w: calls.append(w) or (x, x[:, 0]))
+    cfg = get_config(k=25, prefix_bits=24)
+    jax.eval_shape(lambda x: necklace.necklace_pos(x, cfg),
+                   jax.ShapeDtypeStruct((64, cfg.kmer_limbs), jnp.uint32))
+    assert calls == ([cfg.kmer_bits] if kernel else [])
+
+
+@pytest.mark.gpu
+def test_necklace_kernel_on_gpu(gpu):
+    """The compiled kernel at slab width equals the XLA chain."""
+    from cbl_tpu.ops.kernel_checks import necklace_kernel_check
+
+    for width, L in ((50, 2), (118, 4)):
+        assert necklace_kernel_check(width, L, 1 << 22, reps=1)["ok"]

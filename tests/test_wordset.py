@@ -270,35 +270,28 @@ def test_log_reinsert_after_remove():
 @pytest.mark.parametrize(
     "op", ["union", "intersection", "difference", "symmetric_difference"]
 )
-def test_set_algebra_merge_path_forced(op, monkeypatch):
+def test_set_algebra_merge_path_forced(op, kernel_route):
     """The one-pass merge set-op kernels (union -> dups state, marking ops
-    -> holes state; engaged on TPU by default) must match the python-set
-    oracle exactly, including count before any compaction and operand
-    preservation."""
-    import jax
-
-    monkeypatch.setenv("CBL_TPU_MERGE_KERNEL", "mergepath-force")
-    jax.clear_caches()
-    try:
-        rng = np.random.default_rng(8)
-        a_vals = set(int(x) for x in rng.integers(0, 3000, size=2200))
-        b_vals = set(int(x) for x in rng.integers(0, 3000, size=2200))
-        a = DeviceWordSet(CFG)
-        b = DeviceWordSet(CFG)
-        a.insert_words(_rows(sorted(a_vals)))
-        b.insert_words(_rows(sorted(b_vals)))
-        got = getattr(a, op)(b)
-        assert got._dups or got._holes  # the merge path actually ran
-        expect = sorted(getattr(a_vals, op)(b_vals))
-        assert got.count() == len(expect)  # count correct pre-compaction
-        assert limbs.to_py_ints(got.words_array()) == expect
-        assert a.count() == len(a_vals)
-        assert b.count() == len(b_vals)
-        # the lazy-state result composes: op again with a fresh operand
-        got2 = got.union(b)
-        assert got2.count() == len(set(expect) | b_vals)
-    finally:
-        jax.clear_caches()
+    -> holes state; engaged on a GPU from the merge floor up) must match
+    the python-set oracle exactly, including count before any compaction
+    and operand preservation."""
+    rng = np.random.default_rng(8)
+    a_vals = set(int(x) for x in rng.integers(0, 3000, size=2200))
+    b_vals = set(int(x) for x in rng.integers(0, 3000, size=2200))
+    a = DeviceWordSet(CFG)
+    b = DeviceWordSet(CFG)
+    a.insert_words(_rows(sorted(a_vals)))
+    b.insert_words(_rows(sorted(b_vals)))
+    got = getattr(a, op)(b)
+    assert got._dups or got._holes  # the merge path actually ran
+    expect = sorted(getattr(a_vals, op)(b_vals))
+    assert got.count() == len(expect)  # count correct pre-compaction
+    assert limbs.to_py_ints(got.words_array()) == expect
+    assert a.count() == len(a_vals)
+    assert b.count() == len(b_vals)
+    # the lazy-state result composes: op again with a fresh operand
+    got2 = got.union(b)
+    assert got2.count() == len(set(expect) | b_vals)
 
 
 def test_single_limb_packed_setops_ignore_sentinels():
