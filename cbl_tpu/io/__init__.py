@@ -28,30 +28,44 @@ _native = None
 _native_failed = False
 
 
-def native_lib_path(src: str = _NATIVE_SRC,
-                    build_dir: str = _BUILD_DIR) -> str:
-    """Library path keyed by the source's content hash: an edited source
-    builds a new library, and a stale one is never loaded."""
+def source_keyed_path(src: str, build_dir: str, stem: str,
+                      suffix: str = "") -> str:
+    """Output path keyed by the source's content hash: an edited source
+    builds a new output, and a stale one is never used."""
     import hashlib
 
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(build_dir, f"_fastx-{digest}.so")
+    return os.path.join(build_dir, f"{stem}-{digest}{suffix}")
+
+
+def build_from_source(src: str, build_dir: str, stem: str, suffix: str = "",
+                      flags: tuple = (), libs: tuple = ()) -> str:
+    """Compile the C++ file `src` with g++ into `build_dir` unless this
+    source was built already; returns the output's path.  Raises on a
+    failed build."""
+    out = source_keyed_path(src, build_dir, stem, suffix)
+    if os.path.exists(out):
+        return out
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-std=c++17", *flags, src, "-o", tmp, *libs]
+    subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+    os.replace(tmp, out)  # atomic: no reader sees a partial file
+    return out
+
+
+def native_lib_path(src: str = _NATIVE_SRC,
+                    build_dir: str = _BUILD_DIR) -> str:
+    """Path of the FASTA/Q library built from `src`."""
+    return source_keyed_path(src, build_dir, "_fastx", ".so")
 
 
 def build_native(src: str = _NATIVE_SRC, build_dir: str = _BUILD_DIR) -> str:
     """Compile `fastx.cpp` into `build_dir` unless this source was built
     already; returns the library path.  Raises on a failed build."""
-    lib = native_lib_path(src, build_dir)
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(build_dir, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", src, "-o", tmp,
-           "-lz"]
-    subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-    os.replace(tmp, lib)  # atomic: no reader sees a partial file
-    return lib
+    return build_from_source(src, build_dir, "_fastx", ".so",
+                             flags=("-shared", "-fPIC"), libs=("-lz",))
 
 
 def _load_native():

@@ -119,13 +119,28 @@ def rotl1(x, width: int):
     return out.at[..., L - 1].set(out[..., L - 1] | msb)
 
 
+def cols_lt(a, b):
+    """Lexicographic a < b over sequences of limb columns (column 0 most
+    significant)."""
+    res = a[-1] < b[-1]
+    for l in range(len(a) - 2, -1, -1):
+        res = (a[l] < b[l]) | ((a[l] == b[l]) & res)
+    return res
+
+
+def cols_le(a, b):
+    """Lexicographic a <= b over sequences of limb columns (column 0 most
+    significant)."""
+    res = a[-1] <= b[-1]
+    for l in range(len(a) - 2, -1, -1):
+        res = (a[l] < b[l]) | ((a[l] == b[l]) & res)
+    return res
+
+
 def lt(a, b):
     """Lexicographic a < b over the limb axis (numeric less-than)."""
     L = a.shape[-1]
-    res = a[..., L - 1] < b[..., L - 1]
-    for l in range(L - 2, -1, -1):
-        res = (a[..., l] < b[..., l]) | ((a[..., l] == b[..., l]) & res)
-    return res
+    return cols_lt([a[..., l] for l in range(L)], [b[..., l] for l in range(L)])
 
 
 def eq(a, b):

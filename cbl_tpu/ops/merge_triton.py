@@ -31,24 +31,10 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import triton as plt
 
+from ..limbs import cols_le, cols_lt
+
 DEFAULT_T_LOG = 10  # output rows per program
 NUM_WARPS = 4
-
-
-def _lex_lt(a, b):
-    """a < b over column tuples, column 0 most significant."""
-    lt = a[-1] < b[-1]
-    for l in range(len(a) - 2, -1, -1):
-        lt = (a[l] < b[l]) | ((a[l] == b[l]) & lt)
-    return lt
-
-
-def _lex_le(a, b):
-    """a <= b over column tuples, column 0 most significant."""
-    le = a[-1] <= b[-1]
-    for l in range(len(a) - 2, -1, -1):
-        le = (a[l] < b[l]) | ((a[l] == b[l]) & le)
-    return le
 
 
 def coranks(cols_a, cols_b, diags):
@@ -66,7 +52,7 @@ def coranks(cols_a, cols_b, diags):
         mid = (lo + hi) >> 1
         a_row = tuple(c[jnp.clip(mid, 0, na - 1)] for c in cols_a)
         b_row = tuple(c[jnp.clip(d - mid - 1, 0, nb - 1)] for c in cols_b)
-        pred = _lex_le(a_row, b_row)
+        pred = cols_le(a_row, b_row)
         lo = jnp.where(active & pred, mid + 1, lo)
         hi = jnp.where(active & ~pred, mid, hi)
     return lo
@@ -106,12 +92,12 @@ def _merge_call(dtypes: tuple, na: int, nb: int, t_log: int,
             ok_a = in_a & (ca <= len_b)
             ia = jnp.minimum(b0 + ca - 1, nb - 1)
             pb = [plt.load(r.at[ia], mask=ok_a, other=0) for r in b_refs]
-            rank_a = jnp.where(ok_a & _lex_lt(pb, a), ca, rank_a)
+            rank_a = jnp.where(ok_a & cols_lt(pb, a), ca, rank_a)
             cb = rank_b + step
             ok_b = in_b & (cb <= len_a)
             ib = jnp.minimum(a0 + cb - 1, na - 1)
             pa = [plt.load(r.at[ib], mask=ok_b, other=0) for r in a_refs]
-            rank_b = jnp.where(ok_b & _lex_le(pa, b), cb, rank_b)
+            rank_b = jnp.where(ok_b & cols_le(pa, b), cb, rank_b)
             step //= 2
         # masked-off lanes point past the end (never written)
         pos_a = jnp.where(in_a, d0 + i + rank_a, n)

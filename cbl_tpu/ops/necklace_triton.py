@@ -42,14 +42,6 @@ def _rotl1_cols(x, width: int):
     return out
 
 
-def _lt_cols(a, b):
-    """Lexicographic a < b over lists of limb columns."""
-    res = a[-1] < b[-1]
-    for l in range(len(a) - 2, -1, -1):
-        res = (a[l] < b[l]) | ((a[l] == b[l]) & res)
-    return res
-
-
 @lru_cache(maxsize=None)
 def _necklace_call(width: int, L: int, n: int, block_log: int,
                    interpret: bool):
@@ -64,7 +56,7 @@ def _necklace_call(width: int, L: int, n: int, block_log: int,
         def step(p, carry):
             rot, best, pos = carry
             rot = _rotl1_cols(rot, width)
-            better = _lt_cols(rot, best)
+            better = limbs.cols_lt(rot, best)
             best = [jnp.where(better, r, b) for r, b in zip(rot, best)]
             pos = jnp.where(better, p.astype(jnp.uint32), pos)
             return rot, best, pos

@@ -481,8 +481,13 @@ def phase_four_cards(sz, state):
     devices = jax.devices()[:4]
     mesh = make_mesh(devices)
     placed = set()
+    t0 = time.perf_counter()
+
+    def progress(line):
+        log(f"[4] {time.perf_counter() - t0:8.3f}s {line}")
+
     n, total = g._dryrun_at_scale(mesh, 4, sz["shard_kmers_per_card"],
-                                  placement=placed)
+                                  placement=placed, progress=progress)
     log(f"[4] sharded index {n} distinct k-mers over {total} k-mers streamed")
     return [("4 shards on distinct devices", placed,
              {d.id for d in devices})]

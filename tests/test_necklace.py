@@ -147,3 +147,22 @@ def test_necklace_kernel_on_gpu(gpu):
 
     for width, L in ((50, 2), (118, 4)):
         assert necklace_kernel_check(width, L, 1 << 22, reps=1)["ok"]
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 4])
+def test_column_comparators_match_tuple_order(L):
+    """`limbs.cols_lt` / `cols_le` (shared by both Pallas kernels) and
+    `limbs.lt` order rows as Python compares the tuples of their limbs;
+    few distinct values per limb force ties in every column."""
+    rng = np.random.default_rng(L)
+    a = rng.integers(0, 3, size=(512, L)).astype(np.uint32)
+    b = rng.integers(0, 3, size=(512, L)).astype(np.uint32)
+    a[::7, -1] = 0xFFFFFFFF  # the top of the range compares too
+    ca = [jnp.asarray(a[:, l]) for l in range(L)]
+    cb = [jnp.asarray(b[:, l]) for l in range(L)]
+    want_lt = [tuple(x) < tuple(y) for x, y in zip(a.tolist(), b.tolist())]
+    want_le = [tuple(x) <= tuple(y) for x, y in zip(a.tolist(), b.tolist())]
+    assert np.asarray(limbs.cols_lt(ca, cb)).tolist() == want_lt
+    assert np.asarray(limbs.cols_le(ca, cb)).tolist() == want_le
+    assert np.asarray(limbs.lt(jnp.asarray(a), jnp.asarray(b))).tolist() \
+        == want_lt

@@ -87,3 +87,38 @@ def test_chip_smoke_rehearsal_on_cpu():
     for phase in ("ab", "c", "d", "e", "f", "g"):
         assert any(ln.startswith(f"[{phase}] ok in ") for ln in lines), phase
     assert not any("MISMATCH" in ln for ln in lines)
+
+
+def test_baseline_builds_from_source(tmp_path):
+    """bench/baseline.cpp goes through the same hash-keyed build as the
+    parser library: built once into the given directory, then reused."""
+    sys.path.insert(0, REPO)
+    import bench
+    from cbl_tpu import io as cio
+
+    exe = bench.build_baseline(build_dir=str(tmp_path))
+    src = os.path.join(REPO, "bench", "baseline.cpp")
+    assert exe == cio.source_keyed_path(src, str(tmp_path), "baseline")
+    assert os.access(exe, os.X_OK)
+    mtime = os.path.getmtime(exe)
+    assert bench.build_baseline(build_dir=str(tmp_path)) == exe
+    assert os.path.getmtime(exe) == mtime  # not rebuilt
+    assert not [p for p in os.listdir(tmp_path) if p.endswith(".tmp")]
+
+
+def test_chip_smoke_four_cards_rehearsal_on_cpu():
+    """--four-cards --rehearse drives the sharded path on four virtual CPU
+    devices, one shard each, and every count equals the one-device
+    build's."""
+    r = _python(["chip_smoke.py", "--four-cards", "--rehearse"],
+                {"XLA_FLAGS": "--xla_force_host_platform_device_count=4"},
+                timeout=1200)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    lines = r.stdout.strip().splitlines()
+    assert json.loads(lines[-1]) == {
+        "ok": True, "device": {"platform": "cpu", "kind": "cpu", "count": 4}}
+    assert "[4] 4 shards on distinct devices: got {0, 1, 2, 3} oracle " \
+           "{0, 1, 2, 3}" in lines
+    for step in ("one-device insert", "query", "dynamic round", "remove",
+                 "repartition", "union", "checkpoint reloaded"):
+        assert any(step in ln for ln in lines), step
